@@ -2,9 +2,9 @@ import sys
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import time, json, jax, jax.numpy as jnp
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import get_scene_by_name
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import get_scene_by_name
 
 scene, camera = get_scene_by_name("Atrium")
 for G in (1, 5):

@@ -57,16 +57,16 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-    from oppositerenderer_tpu.core.rng import (LaneSampler, iteration_key,
+    from oppositerenderer.config import RenderConfig, RenderMethod
+    from oppositerenderer.core.rng import (LaneSampler, iteration_key,
                                                make_root_key)
-    from oppositerenderer_tpu.integrators import ppm, vcm
-    from oppositerenderer_tpu.integrators.common import (pixel_coords,
+    from oppositerenderer.integrators import ppm, vcm
+    from oppositerenderer.integrators.common import (pixel_coords,
                                                          scene_epsilon)
-    from oppositerenderer_tpu.photon_map import (build_photon_grid,
+    from oppositerenderer.photon_map import (build_photon_grid,
                                                  gather_photons,
                                                  min_cell_size_for_window)
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.scene import get_scene_by_name
 
     scene, cam = get_scene_by_name(args.scene)
     W = H = args.size
@@ -81,9 +81,7 @@ def main():
         cfg = RenderConfig(width=W, height=H,
                            render_method=RenderMethod.
                            PROGRESSIVE_PHOTON_MAPPING)
-        sc = scene.with_backend(
-            "pallas" if jax.default_backend() == "tpu" and scene.bvh is None
-            else "jnp")
+        sc = scene
         eps = scene_epsilon(sc)
         px, py = pixel_coords(W, H)
         lanes = jnp.arange(W * H, dtype=jnp.int32)
@@ -131,9 +129,7 @@ def main():
         cfg = RenderConfig(width=W, height=H,
                            render_method=RenderMethod.
                            VCM_BIDIRECTIONAL_PATH_TRACING)
-        sc = scene.with_backend(
-            "pallas" if jax.default_backend() == "tpu" and scene.bvh is None
-            else "jnp")
+        sc = scene
         eps = scene_epsilon(sc)
         px, py = pixel_coords(W, H)
         lanes = jnp.arange(W * H, dtype=jnp.int32)

@@ -1,5 +1,9 @@
 """Per-pass cold-compile attribution for the CornellSmall 512^2 PPM
-iteration (round-4 verdict item 4: PPM cold compile <= 60 s)."""
+iteration. Run with the compile cache off (JAX_COMPILATION_CACHE_DIR
+pointing at an empty directory) to see cold times:
+
+    python scripts/ppm_compile_profile.py
+"""
 import sys
 import time
 from pathlib import Path
@@ -17,12 +21,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import ppm
-    from oppositerenderer_tpu.integrators.common import (pixel_coords,
+    from oppositerenderer.config import RenderConfig, RenderMethod
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import ppm
+    from oppositerenderer.integrators.common import (pixel_coords,
                                                          scene_epsilon)
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.scene import get_scene_by_name
 
     scene, cam = get_scene_by_name("CornellSmall")
     cfg = RenderConfig(width=512, height=512,
@@ -37,8 +41,7 @@ def main():
     t("warmup (trivial jit)", lambda: jax.jit(
         lambda x: x * 2).lower(jnp.ones((8, 8))).compile())
 
-    sc = scene.with_backend(
-        "pallas" if jax.default_backend() == "tpu" else "jnp")
+    sc = scene
 
     t("eye pass", lambda: jax.jit(
         lambda k: ppm.trace_eye_pass(sc, cam, cfg, k, eps, px, py, lanes)
@@ -49,7 +52,7 @@ def main():
         lambda k: ppm.trace_photon_pass(sc, cfg, k, eps, plane)
     ).lower(key).compile())
 
-    from oppositerenderer_tpu.photon_map import (PhotonBatch,
+    from oppositerenderer.photon_map import (PhotonBatch,
                                                  build_photon_grid,
                                                  min_cell_size_for_window)
     P = cfg.photons_per_iteration * cfg.max_photon_deposits_per_emitted
@@ -65,13 +68,13 @@ def main():
     grid = build_photon_grid(batch, cfg.photon_grid_resolution,
                              min_cell_size=min_cell_size_for_window(
                                  jnp.float32(0.05), 4))
-    from oppositerenderer_tpu.accel.pallas_gather import (
-        gather_photons_tiled, tile_block_order, ROWS, TILE)
+    from oppositerenderer.accel.pallas_gather import (
+        gather_mode, gather_photons_tiled, ROWS, TILE)
     u = jnp.zeros((n // TILE, ROWS + 2))
-    t("tiled gather (Mosaic)", lambda: jax.jit(
+    interpret = gather_mode(True, cfg.width, cfg.height) == "interpret"
+    t("tiled gather (Triton)", lambda: jax.jit(
         lambda g, q: gather_photons_tiled(
-            g, q, q, jnp.float32(0.05), u_rows=u,
-            interpret=jax.default_backend() != "tpu")
+            g, q, q, jnp.float32(0.05), u_rows=u, interpret=interpret)
     ).lower(grid, jnp.zeros((n, 3))).compile())
 
     t("FULL iteration", lambda: jax.jit(

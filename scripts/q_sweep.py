@@ -1,10 +1,9 @@
 """Sweep the quantized-traversal schedule knobs on the current backend.
 
-Round-4 campaign (VERDICT #2): _Q_SCHEDULE / dynamic phase selection /
-pend capacity / compaction-ladder shape were unswept in round 3. Times
-closest-hit and any-hit traversal on an incoherent 1M-ray wave over the
-full Atrium BVH for each variant, plus the compile cost of the closest
-kernel, and prints one ns/ray table for PERF_NOTES.
+Knobs: _Q_SCHEDULE / dynamic phase selection / pend capacity /
+compaction-ladder shape. Times closest-hit and any-hit traversal on an
+incoherent 1M-ray wave over the full Atrium BVH for each variant, plus the
+compile cost of the closest kernel, and prints one ns/ray table.
 
 Usage: python scripts/q_sweep.py [--scene Atrium] [--n 1048576] [--reps 3]
 """
@@ -49,8 +48,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from oppositerenderer_tpu.accel import bvh as B
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.accel import bvh as B
+    from oppositerenderer.scene import get_scene_by_name
 
     scene, cam = get_scene_by_name(args.scene)
     assert scene.bvh is not None and scene.bvh.q_rows is not None

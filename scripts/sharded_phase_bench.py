@@ -1,5 +1,4 @@
-"""Intra-iteration sharding cost model on the 8-device virtual CPU mesh
-(round-5 verdict item 7: TIME the sharded paths, don't just verify them).
+"""Intra-iteration sharding cost model on the 8-device virtual CPU mesh.
 
 Times one sharded iteration per regime and reports wall + bytes moved:
 
@@ -9,8 +8,8 @@ Times one sharded iteration per regime and reports wall + bytes moved:
 * VCM, uniform vertex sampling (global-store all_gather regime)
 
 CPU wall times model RELATIVE phase costs only (a virtual mesh shares one
-host's cores); the bytes columns are exact and are what ICI would carry.
-Writes the PERF_NOTES round-5 table to stdout as markdown.
+host's cores); the bytes columns are exact and are what the device
+interconnect would carry. Writes the table to stdout as markdown.
 """
 import statistics
 import sys
@@ -43,12 +42,12 @@ def time_case(step, args, reps=3):
 
 
 def main():
-    from oppositerenderer_tpu.config import (PhotonExchange, RenderConfig,
+    from oppositerenderer.config import (PhotonExchange, RenderConfig,
                                              RenderMethod)
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.parallel import (make_mesh,
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.parallel import (make_mesh,
                                                make_sharded_render_fn)
-    from oppositerenderer_tpu.scene import make_cornell_small
+    from oppositerenderer.scene import make_cornell_small
 
     scene, cam = make_cornell_small()
     mesh = make_mesh(8)

@@ -1,8 +1,7 @@
-"""A/B attribution of round-5 traversal changes on the real chip.
+"""A/B attribution of BVH traversal variants on the current backend.
 
-Toggles {collapse sah/greedy} x {_CODE_STACK} x {_FLUSH_AT_LADDER} on the
-1M incoherent Atrium wave (same as bvh_tune.py) to attribute deltas vs the
-round-4 baseline (~425-440 ms/M rays).
+Toggles {collapse sah/greedy} x {_CODE_STACK} x {_FLUSH_AT_LADDER} on a
+1M-ray incoherent Atrium wave.
 """
 import statistics
 import sys
@@ -17,8 +16,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from oppositerenderer_tpu.accel import bvh as B
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.accel import bvh as B
+    from oppositerenderer.scene import get_scene_by_name
 
     configs = []
     for arg in sys.argv[1:]:

@@ -19,8 +19,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from oppositerenderer_tpu.accel import bvh as B
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.accel import bvh as B
+    from oppositerenderer.scene import get_scene_by_name
 
     code_stack = "--mask" not in sys.argv
     B._CODE_STACK = code_stack

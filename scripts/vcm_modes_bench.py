@@ -35,10 +35,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import vcm
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.config import RenderConfig, RenderMethod
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import vcm
+    from oppositerenderer.scene import get_scene_by_name
 
     scene, cam = get_scene_by_name("CornellSmall")
     key = make_root_key(0)

@@ -3,8 +3,12 @@
 Launched by tests/test_multiprocess.py (and scripts/scaling_bench.py) as
 ``python tests/distributed_worker.py <pid> <nproc> <port> <out.npz>
 [iters] [size] [method]``. Each process joins the coordinator, renders its
-strided share of iterations, merges over DCN (process_allgather), and
-process 0 writes the merged film + timing.
+strided share of iterations, merges across processes (an all-reduce),
+and process 0 writes the merged film + timing.
+
+JAX_PLATFORMS picks the backend (default cpu, one virtual device per
+process). On the GPU each worker sees only card ``pid``: one process per
+card, since a JAX process reserves most of a card's memory.
 """
 import os
 import sys
@@ -20,8 +24,11 @@ def main():
     size = int(sys.argv[6]) if len(sys.argv) > 6 else 32
     method_name = sys.argv[7] if len(sys.argv) > 7 else "pt"
 
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
+    if os.environ.setdefault("JAX_PLATFORMS", "cpu") == "cpu":
+        os.environ.setdefault("XLA_FLAGS",
+                              "--xla_force_host_platform_device_count=1")
+    else:
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(pid)
     import jax
     jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                                num_processes=nproc, process_id=pid)
@@ -29,9 +36,9 @@ def main():
 
     import numpy as np
 
-    from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-    from oppositerenderer_tpu.parallel.distributed import MultiHostRenderer
-    from oppositerenderer_tpu.scene import make_cornell_small
+    from oppositerenderer.config import RenderConfig, RenderMethod
+    from oppositerenderer.parallel.distributed import MultiHostRenderer
+    from oppositerenderer.scene import make_cornell_small
 
     method = {"pt": RenderMethod.PATH_TRACING,
               "ppm": RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
@@ -42,7 +49,7 @@ def main():
                        photon_grid_resolution=16,
                        gather_photon_budget=64)
     mhr = MultiHostRenderer(scene, cam, cfg, seed=5)
-    # compile + execute the exact run() paths (fused dispatch + DCN merge)
+    # compile + execute the exact run() paths (fused dispatch + merge)
     # outside the timed region (the reference also excludes its 60 s OptiX
     # JIT from render timing), then barrier so the timed window starts
     # simultaneously on every worker (compile skew otherwise counts

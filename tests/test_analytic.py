@@ -17,11 +17,11 @@ CLOSED-FORM ground truth. Two scenes:
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.camera import Camera
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.lights import make_area_light, make_point_light
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene.builder import SceneBuilder
+from oppositerenderer.camera import Camera
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.lights import make_area_light, make_point_light
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene.builder import SceneBuilder
 
 RHO = 0.6
 W = H = 16
@@ -64,7 +64,7 @@ def floor_scene(light):
 def pixel_floor_points(cam):
     """Intersect pixel-center rays with the y=0 plane (host math)."""
     import jax.numpy as jnp
-    from oppositerenderer_tpu.integrators.common import pixel_coords
+    from oppositerenderer.integrators.common import pixel_coords
     px, py = pixel_coords(W, H)
     jit = jnp.full((W * H, 2), 0.5)
     o, d = cam.generate_rays(px, py, jit, W, H)

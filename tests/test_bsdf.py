@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.bsdf import BSDF, fresnel_dielectric
-from oppositerenderer_tpu.core import math as m
+from oppositerenderer.bsdf import BSDF, fresnel_dielectric
+from oppositerenderer.core import math as m
 
 N = 4096
 

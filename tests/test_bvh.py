@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.accel import intersect, occluded
-from oppositerenderer_tpu.accel.bvh import build_scene_bvh, build_bvh_arrays
-from oppositerenderer_tpu.core import math as m
-from oppositerenderer_tpu.lights import make_point_light
-from oppositerenderer_tpu.scene import SceneBuilder, make_cornell_small
+from oppositerenderer.accel import intersect, occluded
+from oppositerenderer.accel.bvh import build_scene_bvh, build_bvh_arrays
+from oppositerenderer.core import math as m
+from oppositerenderer.lights import make_point_light
+from oppositerenderer.scene import SceneBuilder, make_cornell_small
 
 
 def random_soup_scene(n_tris=3000, seed=0):
@@ -33,7 +33,7 @@ def rays(n, seed=1):
 
 def test_native_builder_available():
     """The C++ builder should compile and run in this environment."""
-    from oppositerenderer_tpu.native import build_bvh_native
+    from oppositerenderer.native import build_bvh_native
     pmin = np.asarray([[0, 0, 0], [2, 0, 0], [0, 2, 0], [4, 4, 4]],
                       np.float32)
     pmax = pmin + 1.0
@@ -103,10 +103,10 @@ def test_bvh_occlusion_matches():
 
 def test_bvh_cornell_render_and_grad():
     """Rendering + gradients work through the BVH (custom_vjp zero-grad)."""
-    from oppositerenderer_tpu import diff
-    from oppositerenderer_tpu.config import RenderConfig
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import pt
+    from oppositerenderer import diff
+    from oppositerenderer.config import RenderConfig
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import pt
     scene, cam = make_cornell_small()
     scene_b, bvh = build_scene_bvh(scene, leaf_size=4)
     scene_b = scene_b.replace(bvh=bvh)
@@ -133,15 +133,14 @@ def test_quantized_loop_bit_identical_to_f32_loop():
     node visits, and leaf tests run on the exact f32 rows, so traversal
     results must match the f32 loop EXACTLY (closest and any-hit).
 
-    Guarantee scope (round-3 advisor): "identical" means up to equal-t
-    TIES — two triangles with exactly equal f32 t resolve by visit order,
-    which the two loops may differ on (this scene has no such tie at
-    these rays, so exact equality is asserted); and the conservativeness
-    of the quantized boxes is asserted under THIS backend's contraction
-    semantics — the compiled TPU lowering (where org + q*scale may fuse
-    to an FMA) is covered by scripts/tpu_selfcheck.py check #7."""
-    from oppositerenderer_tpu.accel import bvh as B
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    Guarantee scope: "identical" means up to equal-t TIES — two triangles
+    with exactly equal f32 t resolve by visit order, which the two loops
+    may differ on (this scene has no such tie at these rays, so exact
+    equality is asserted); and the conservativeness of the quantized boxes
+    is asserted under THIS backend's contraction semantics (a compiled
+    GPU lowering may fuse org + q*scale to an FMA)."""
+    from oppositerenderer.accel import bvh as B
+    from oppositerenderer.scene import get_scene_by_name
     scene, _cam = get_scene_by_name("Atrium:0.1")
     bvh = scene.bvh
     assert bvh is not None and bvh.q_rows is not None

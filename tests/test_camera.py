@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.camera import Camera
+from oppositerenderer.camera import Camera
 
 
 def make_cam(aperture=0.0):

@@ -7,11 +7,11 @@ priority rules, texture file loading, and smooth-normal generation.
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.scene import get_scene_by_name
-from oppositerenderer_tpu.scene.collada import (generate_smooth_normals,
+from oppositerenderer.scene import get_scene_by_name
+from oppositerenderer.scene.collada import (generate_smooth_normals,
                                                 load_scene_file)
-from oppositerenderer_tpu.scene.collada_export import export_collada
-from oppositerenderer_tpu.scene.types import (DIFFUSE, EMITTER, GLASS,
+from oppositerenderer.scene.collada_export import export_collada
+from oppositerenderer.scene.types import (DIFFUSE, EMITTER, GLASS,
                                               MIRROR, TEXTURED)
 
 
@@ -55,8 +55,8 @@ def test_atrium_roundtrip_structure(tmp_path, atrium_lite):
 def test_roundtrip_renders(tmp_path, atrium_lite):
     import jax.numpy as jnp
 
-    from oppositerenderer_tpu.config import RenderConfig
-    from oppositerenderer_tpu.renderer import Renderer
+    from oppositerenderer.config import RenderConfig
+    from oppositerenderer.renderer import Renderer
     scene, cam = atrium_lite
     dae = export_collada(scene, tmp_path / "atrium_lite.dae")
     scene2, _ = load_scene_file(dae)

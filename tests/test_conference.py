@@ -4,9 +4,9 @@ reference's second flagship workload class (README.md:15)."""
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import get_scene_by_name
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import get_scene_by_name
 
 
 @pytest.fixture(scope="module")

@@ -3,9 +3,9 @@ path tracing, checkify NaN pass, photon depth histogram."""
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu import debug
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer import debug
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.scene import make_cornell_small
 
 
 @pytest.fixture(scope="module")
@@ -66,8 +66,8 @@ def test_photon_depth_histogram_known_geometry():
     at depths 1 and 2 -> per-path count ~always 2. A depth-major/lane-major
     reshape mixup smears this spike across {0..3}; the totals in the test
     above survive any permutation, this distribution does not."""
-    from oppositerenderer_tpu.lights import make_point_light
-    from oppositerenderer_tpu.scene import SceneBuilder
+    from oppositerenderer.lights import make_point_light
+    from oppositerenderer.scene import SceneBuilder
 
     b = SceneBuilder()
     mat = b.add_diffuse((0.7, 0.7, 0.7))

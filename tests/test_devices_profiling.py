@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from oppositerenderer_tpu.core.profiling import BenchmarkTimer, pass_scope, trace
-from oppositerenderer_tpu.devices import ComputeDeviceRepository
+from oppositerenderer.core.profiling import BenchmarkTimer, pass_scope, trace
+from oppositerenderer.devices import ComputeDeviceRepository
 
 
 def test_repository_enumerates_all_devices():

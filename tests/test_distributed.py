@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.parallel.distributed import (IterationScheduler,
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.parallel.distributed import (IterationScheduler,
                                                        MultiHostRenderer,
                                                        merge_films)
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import make_cornell_small
 
 
 def test_scheduler_hands_out_disjoint_packets():
@@ -97,7 +97,7 @@ def test_scheduler_driven_run():
 
 
 def test_cli_end_to_end(tmp_path):
-    from oppositerenderer_tpu.cli import main
+    from oppositerenderer.cli import main
     out = tmp_path / "cli.png"
     ckpt = tmp_path / "cli.npz"
     rc = main(["--scene", "CornellSmall", "--method", "pt", "--size", "24",
@@ -110,6 +110,6 @@ def test_cli_end_to_end(tmp_path):
                "--iterations", "1", "--output", str(out),
                "--checkpoint", str(ckpt), "--resume", "--quiet", "--cpu"])
     assert rc == 0
-    from oppositerenderer_tpu.film import load_checkpoint
+    from oppositerenderer.film import load_checkpoint
     film, _, _, _ = load_checkpoint(ckpt)
     assert int(film.iterations) == 3

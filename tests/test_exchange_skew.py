@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.parallel import make_mesh
-from oppositerenderer_tpu.parallel.exchange import exchange_photons_by_cell
-from oppositerenderer_tpu.photon_map import PhotonBatch
+from oppositerenderer.parallel import make_mesh
+from oppositerenderer.parallel.exchange import exchange_photons_by_cell
+from oppositerenderer.photon_map import PhotonBatch
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")

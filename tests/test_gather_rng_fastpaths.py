@@ -1,50 +1,15 @@
-"""Unit tests for the TPU fast paths: fused one-hot row gather
-(core/gather.py) and counter-mode threefry (core/rng.py).
+"""Unit tests for the counter-mode threefry fast path (core/rng.py).
 
-Both paths exist purely for speed; these tests pin them to the slow,
-obviously-correct implementations so perf work can't drift semantics.
+It exists purely for speed; these tests pin it to the slow,
+obviously-correct implementation so perf work can't drift semantics.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.core.gather import fused_rows
-from oppositerenderer_tpu.core.rng import (LaneSampler, make_root_key,
+from oppositerenderer.core.rng import (LaneSampler, make_root_key,
                                            set_rng_mode, threefry2x32)
-
-
-def _table(dtype_mix=True):
-    k = jax.random.PRNGKey(0)
-    t = {
-        "f3": jax.random.normal(k, (13, 3)),
-        "f1": jax.random.normal(jax.random.fold_in(k, 1), (13,)),
-    }
-    if dtype_mix:
-        t["i1"] = jnp.arange(13, dtype=jnp.int32) * 7
-        t["b1"] = (jnp.arange(13) % 3) == 0
-    return t
-
-
-@pytest.mark.parametrize("force", [True, False])
-def test_fused_rows_matches_take(force):
-    table = _table()
-    idx = jnp.asarray([0, 5, 12, 5, 3, 0, 11], jnp.int32)
-    got = fused_rows(table, idx, force=force)
-    want = jax.tree_util.tree_map(lambda a: a[idx], table)
-    for key in table:
-        np.testing.assert_allclose(np.asarray(got[key]),
-                                   np.asarray(want[key]), rtol=0, atol=1e-6)
-        assert got[key].dtype == want[key].dtype
-
-
-def test_fused_rows_multidim_idx():
-    table = _table(dtype_mix=False)
-    idx = jnp.asarray([[0, 5], [12, 3]], jnp.int32)
-    got = fused_rows(table, idx, force=True)
-    assert got["f3"].shape == (2, 2, 3)
-    np.testing.assert_allclose(np.asarray(got["f3"]),
-                               np.asarray(table["f3"][idx]), atol=1e-6)
 
 
 def test_threefry_matches_jax_internal():

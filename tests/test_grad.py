@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu import diff
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.core.rng import make_root_key
-from oppositerenderer_tpu.integrators import ppm, pt, vcm
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer import diff
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.core.rng import make_root_key
+from oppositerenderer.integrators import ppm, pt, vcm
+from oppositerenderer.scene import make_cornell_small
 
 KEY = make_root_key(12)
 
@@ -98,12 +98,10 @@ def test_ppm_grad_kd_matches_fd(cornell):
 
 def test_ppm_grad_through_tiled_gather(cornell):
     """jax.grad through a PPM iteration with the Pallas tile gather enabled
-    (interpret mode on CPU) must work — the gather is a zero-gradient
-    custom_vjp, so the kd gradient still flows through the BRDF/attenuation
-    factors outside the kernel and stays close to the XLA-gather gradient
-    (kd enters the indirect estimate multiplicatively outside the gather;
-    only the photon-POWER term differs, which kd also feeds via deposited
-    power — hence approx, not exact)."""
+    (interpret mode on CPU): the kernel's backward pass is its plain
+    reference's VJP, so the kd gradient carries the photon-power term too
+    (more kd -> more deposited power) and matches finite differences of
+    the same route, as the XLA gather's does."""
     scene, cam = cornell
     cfg = RenderConfig(width=32, height=32,
                        render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,
@@ -120,23 +118,9 @@ def test_ppm_grad_through_tiled_gather(cornell):
         return jnp.mean(img)
 
     g = jax.grad(loss)(1.0)
-    assert np.isfinite(float(g)) and float(g) > 0
-    g_ref = jax.grad(
-        lambda sc: loss_with_cfg(scene, cam, cfg.replace(
-            use_pallas_gather=False), sc))(1.0)
-    # the dropped photon-power term is positive (more kd -> more deposited
-    # power -> brighter indirect), so the tiled gradient sits strictly
-    # between 0 and the full XLA-gather gradient (measured ~60% of it)
-    assert 0.0 < float(g) < float(g_ref), (g, g_ref)
-    assert float(g) > 0.25 * float(g_ref), (g, g_ref)
-
-
-def loss_with_cfg(scene, cam, cfg, kd_scale):
-    s = diff.set_material_param(scene, "kd", 0,
-                                scene.materials.kd[0] * kd_scale)
-    img, _ = ppm.render_iteration(s, cam, cfg, jnp.int32(0), KEY,
-                                  jnp.float32(0.003))
-    return jnp.mean(img)
+    fd = finite_diff(loss, 1.0, 1e-3)
+    assert float(g) == pytest.approx(float(fd), rel=0.03), (g, fd)
+    assert float(g) > 0
 
 
 def test_vcm_grad_kd_matches_fd(cornell):
@@ -185,11 +169,11 @@ def test_vcm_grad_emission_linear(cornell):
 
 def test_grad_wrt_glossy_params(cornell):
     """Gradients flow through the Phong lobe (ks, exponent)."""
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.scene import get_scene_by_name
     scene, cam = get_scene_by_name("CornellSmallLargeSphere")  # glossy floor
     cfg = pt_cfg(width=16, height=16)
     # glossy material index: find a GLOSSY row
-    from oppositerenderer_tpu.scene.types import GLOSSY
+    from oppositerenderer.scene.types import GLOSSY
     gidx = int(np.argmax(np.asarray(scene.materials.kind) == GLOSSY))
 
     def loss_ks(s_val):

@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu import diff
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.core.rng import make_root_key
-from oppositerenderer_tpu.integrators import pt
-from oppositerenderer_tpu.parallel import make_mesh
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer import diff
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.core.rng import make_root_key
+from oppositerenderer.integrators import pt
+from oppositerenderer.parallel import make_mesh
+from oppositerenderer.scene import make_cornell_small
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -70,7 +70,7 @@ def wrt_kd_scale(scene):
 def test_sharded_ppm_grad_runs_and_matches_unsharded(cornell):
     """Grad flows through the all-to-all photon exchange + partitioned
     gather (sort/all_to_all/psum_scatter are all linear in photon power)."""
-    from oppositerenderer_tpu.integrators import ppm
+    from oppositerenderer.integrators import ppm
     scene, cam = cornell
     cfg = RenderConfig(width=16, height=16,
                        render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,

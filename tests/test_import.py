@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.scene import get_scene_by_name
-from oppositerenderer_tpu.scene.collada import load_obj, load_collada
-from oppositerenderer_tpu.scene.types import (DIFFUSE, EMITTER, GLASS,
+from oppositerenderer.scene import get_scene_by_name
+from oppositerenderer.scene.collada import load_obj, load_collada
+from oppositerenderer.scene.types import (DIFFUSE, EMITTER, GLASS,
                                               GLOSSY, TEXTURED)
 
 DAE = """<?xml version="1.0" encoding="utf-8"?>
@@ -152,12 +152,12 @@ def test_collada_import(dae_file):
 
 def test_collada_renders(dae_file):
     import jax.numpy as jnp
-    from oppositerenderer_tpu.config import RenderConfig
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import pt
+    from oppositerenderer.config import RenderConfig
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import pt
     scene, _ = load_collada(dae_file)
     # front side of the quads (+z), where the one-sided faces point
-    from oppositerenderer_tpu.camera import Camera
+    from oppositerenderer.camera import Camera
     cam = Camera.make((0.5, 1.2, 4.0), (0.5, 0.8, 0.0), hfov=50, vfov=50)
     cfg = RenderConfig(width=16, height=16)
     img = pt.render_iteration(scene, cam, cfg, jnp.int32(0),
@@ -181,12 +181,11 @@ def test_obj_import(obj_file):
 def test_textured_material_renders(tmp_path):
     """A checkerboard texture modulates kd through the PT path."""
     import jax.numpy as jnp
-    from PIL import Image
-    from oppositerenderer_tpu.config import RenderConfig
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import pt
-    from oppositerenderer_tpu.scene import SceneBuilder
-    from oppositerenderer_tpu.lights import make_point_light
+    from oppositerenderer.config import RenderConfig
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import pt
+    from oppositerenderer.scene import SceneBuilder
+    from oppositerenderer.lights import make_point_light
 
     checker = np.indices((8, 8)).sum(axis=0) % 2
     img = np.stack([checker, checker, checker], axis=-1).astype(np.float32)
@@ -199,7 +198,7 @@ def test_textured_material_renders(tmp_path):
     scene = b.build()
     assert scene.has_textures
 
-    from oppositerenderer_tpu.camera import Camera
+    from oppositerenderer.camera import Camera
     cam = Camera.make((0, 3, -3.0), (0, 0, 0), hfov=40, vfov=40)
     cfg = RenderConfig(width=32, height=32, pt_max_segments_nee=2)
     out = pt.render_iteration(scene, cam, cfg, jnp.int32(0),

@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.accel import intersect, occluded
-from oppositerenderer_tpu.core import math as m
-from oppositerenderer_tpu.scene import make_cornell_small, get_scene_by_name
+from oppositerenderer.accel import intersect, occluded
+from oppositerenderer.core import math as m
+from oppositerenderer.scene import make_cornell_small, get_scene_by_name
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu import lights as L
+from oppositerenderer import lights as L
 
 N = 1 << 14
 

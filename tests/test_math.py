@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.core import math as m
+from oppositerenderer.core import math as m
 
 
 def test_normalize_unit_length(rng_np):

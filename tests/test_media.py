@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.integrators import media
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import SceneBuilder, make_cornell_small
-from oppositerenderer_tpu.scene.types import Medium
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.integrators import media
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import SceneBuilder, make_cornell_small
+from oppositerenderer.scene.types import Medium
 
 
 def medium_box(ss=0.2, sa=0.05):
@@ -124,9 +124,9 @@ def _glass_slab_scene(sigma_a):
     """Camera at z=-2 -> glass slab z in [0.5, 1.5] -> white wall at z=3,
     medium box covering z in [0, 3]. The straight-through eye path spends
     2.0 units in the medium OUTSIDE the glass and 1.0 INSIDE it."""
-    from oppositerenderer_tpu.camera import Camera
-    from oppositerenderer_tpu.lights import make_area_light
-    from oppositerenderer_tpu.scene import SceneBuilder
+    from oppositerenderer.camera import Camera
+    from oppositerenderer.lights import make_area_light
+    from oppositerenderer.scene import SceneBuilder
 
     b = SceneBuilder("glass-slab")
     glass = b.add_glass(1.5)
@@ -154,8 +154,8 @@ def test_glass_interior_skips_medium():
     = exp(-2 sigma_a), NOT exp(-3 sigma_a) (whole path)."""
     import jax
     import jax.numpy as jnp
-    from oppositerenderer_tpu.integrators.ppm import trace_eye_pass
-    from oppositerenderer_tpu.integrators.common import (pixel_coords,
+    from oppositerenderer.integrators.ppm import trace_eye_pass
+    from oppositerenderer.integrators.common import (pixel_coords,
                                                          scene_epsilon)
 
     sigma = 0.4
@@ -192,15 +192,15 @@ def test_inscatter_beyond_primary_segment():
     integrators/ppm.py 'primary = depth == 0')."""
     import jax
     import jax.numpy as jnp
-    from oppositerenderer_tpu.camera import Camera
-    from oppositerenderer_tpu.scene import SceneBuilder
-    from oppositerenderer_tpu.integrators.ppm import trace_eye_pass
-    from oppositerenderer_tpu.integrators.common import (pixel_coords,
+    from oppositerenderer.camera import Camera
+    from oppositerenderer.scene import SceneBuilder
+    from oppositerenderer.integrators.ppm import trace_eye_pass
+    from oppositerenderer.integrators.common import (pixel_coords,
                                                          scene_epsilon)
 
     # camera at origin -> 45-degree mirror at z=2 deflecting up (+y);
     # medium box only above y=1; diffuse wall at y=4
-    from oppositerenderer_tpu.lights import make_area_light
+    from oppositerenderer.lights import make_area_light
     b = SceneBuilder("mirror-medium")
     mirror = b.add_mirror((0.95, 0.95, 0.95))
     wall = b.add_diffuse((0.6, 0.6, 0.6))
@@ -246,16 +246,16 @@ def test_slab_single_scatter_matches_quadrature():
 
     Low albedo (sigma_s/sigma_t = 1/6) keeps multiple scattering ~2%."""
     import jax.numpy as jnp
-    from oppositerenderer_tpu.camera import Camera
-    from oppositerenderer_tpu.scene import SceneBuilder
-    from oppositerenderer_tpu.scene.types import Medium
+    from oppositerenderer.camera import Camera
+    from oppositerenderer.scene import SceneBuilder
+    from oppositerenderer.scene.types import Medium
 
     sigma_s, sigma_a = 0.05, 0.25
     sigma_t = sigma_s + sigma_a
     phi = 50.0
     light_pos = np.array([1.45, 1.0, 1.0])
 
-    from oppositerenderer_tpu.lights import make_point_light
+    from oppositerenderer.lights import make_point_light
     b = SceneBuilder("slab")
     black = b.add_diffuse((0.0, 0.0, 0.0))
     S = 3.0

@@ -1,20 +1,24 @@
-"""Pallas tile-gather vs the XLA reference gather (interpret mode on CPU;
-compiled-mode assertion runs on the real chip via scripts/tpu_selfcheck.py).
-"""
+"""Tile photon gather (accel/pallas_gather.py): the Triton kernel in the
+Pallas interpreter against its plain reference and the XLA gather, the
+wrapper's padding and the route selection. ``test_compiled_*`` needs the
+card (``gpu`` marker)."""
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.accel.pallas_gather import (ROWS, TILE,
-                                                      gather_photons_tiled)
-from oppositerenderer_tpu.photon_map import (PhotonBatch, build_photon_grid,
-                                             gather_photons,
-                                             min_cell_size_for_window)
+from oppositerenderer.accel import pallas_gather as tg
+from oppositerenderer.accel.pallas_gather import (ROWS, TILE,
+                                                  gather_photons_tiled)
+from oppositerenderer.photon_map import (PhotonBatch, build_photon_grid,
+                                         gather_photons,
+                                         min_cell_size_for_window)
 
 
 def make_case(n_photons=4096, n_queries=TILE * 2, radius=0.12, seed=0,
-              cluster=False):
+              cluster=False, spread=0.02):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0, 1, (n_photons, 3)).astype(np.float32)
     if cluster:   # dense cells to force chunk/row subsampling paths
@@ -30,11 +34,11 @@ def make_case(n_photons=4096, n_queries=TILE * 2, radius=0.12, seed=0,
                              min_cell_size=min_cell_size_for_window(
                                  jnp.float32(radius), 4))
     # queries cluster per tile (image tiles hit nearby surface points):
-    # within a tile the spread stays under the cell window, so the tile
-    # union needs no row/chunk subsampling and exactness is testable
+    # with the default spread the tile union needs no row/chunk
+    # subsampling and exactness is testable
     n_tiles = n_queries // TILE
     centers = rng.uniform(0.25, 0.75, (n_tiles, 3)).astype(np.float32)
-    jitter = (0.02 * rng.standard_normal((n_tiles, TILE, 3))
+    jitter = (spread * rng.standard_normal((n_tiles, TILE, 3))
               ).astype(np.float32)
     qpos = np.clip(centers[:, None, :] + jitter, 0.0, 1.0).reshape(-1, 3)
     qn = _unit(rng, n_queries)
@@ -65,14 +69,50 @@ def test_tiled_matches_reference_gather(check_normal):
     assert np.asarray(stats["photons_visited"]).shape == (qpos.shape[0],)
 
 
+# photon counts that are not multiples of the PC sub-chunk; "over-full"
+# spreads one tile's queries over the whole grid around a dense cluster,
+# so rows exceed CHUNK (random block pick) and the (y,z) span exceeds the
+# 8x8 slot grid (stride sampling)
+CASES = {"sparse": dict(n_photons=1000),
+         "over-full": dict(n_photons=3001, cluster=True, radius=0.2,
+                           spread=0.3)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("check_normal", [True, False])
+def test_kernel_matches_plain_reference(case, masked, check_normal):
+    """The kernel (interpreted) and the plain jnp evaluation of the same
+    tiled estimator agree up to float32 summation order, subsampling
+    included."""
+    grid, qpos, qn, radius = make_case(n_queries=TILE, seed=4,
+                                       **CASES[case])
+    rng = np.random.default_rng(9)
+    u = jnp.asarray(rng.uniform(size=(1, ROWS + 2)).astype(np.float32))
+    valid = (jnp.asarray(rng.uniform(size=TILE) < 0.7) if masked
+             else None)
+    got, stats = gather_photons_tiled(grid, qpos, qn, radius, u_rows=u,
+                                      check_normal=check_normal,
+                                      valid=valid, interpret=True)
+    want = tg.gather_photons_tiled_reference(
+        grid, qpos, qn, radius, u_rows=u, check_normal=check_normal,
+        valid=valid)
+    want = np.asarray(want)
+    assert want.sum() > 0
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4,
+                               atol=1e-6 * want.max())
+    if case == "over-full":
+        assert int(stats["photon_subsampled"][0]) > 0
+
+
 def test_ppm_iteration_with_tiled_gather_agrees():
     """Full PPM iteration with the tile gather (interpret mode) vs the XLA
     gather: same estimator family, different subsampling — images agree
     statistically and converge to the same mean."""
-    from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-    from oppositerenderer_tpu.integrators import ppm
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.scene import make_cornell_small
+    from oppositerenderer.config import RenderConfig, RenderMethod
+    from oppositerenderer.integrators import ppm
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.scene import make_cornell_small
 
     scene, cam = make_cornell_small()
     base = dict(width=48, height=48,
@@ -125,3 +165,99 @@ def test_tiled_subsampled_is_unbiased_estimate():
     sel = ref_np.sum(axis=1) > np.percentile(ref_np.sum(axis=1), 60)
     np.testing.assert_allclose(mean[sel].sum(axis=1),
                                ref_np[sel].sum(axis=1), rtol=0.6)
+
+
+def test_gather_has_zero_gradient():
+    """pallas_call has no AD rule: the custom_vjp's backward pass is the
+    plain reference's VJP, so gradients with respect to the query points,
+    photon powers and radius equal the reference's, subsampling included
+    (the test name predates this rule: the gradient was once zero)."""
+    grid, qpos, qn, radius = make_case(n_photons=3001, n_queries=TILE,
+                                       cluster=True, radius=0.2, spread=0.3)
+    u = jnp.asarray(np.random.default_rng(9).uniform(
+        size=(1, ROWS + 2)).astype(np.float32))
+    w = jnp.asarray(np.random.default_rng(2).uniform(
+        size=(TILE, 3)).astype(np.float32))
+
+    def loss(gather, q, power, r):
+        return (gather(grid.replace(power=power), q, qn, r, u_rows=u)
+                * w).sum()
+
+    def kernel(*a, **kw):
+        return gather_photons_tiled(*a, interpret=True, **kw)[0]
+
+    args = (qpos, grid.power, radius)
+    got = jax.grad(partial(loss, kernel), argnums=(0, 1, 2))(*args)
+    want = jax.grad(partial(loss, tg.gather_photons_tiled_reference),
+                    argnums=(0, 1, 2))(*args)
+    assert float(np.abs(np.asarray(got[1])).max()) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(b).max()))
+
+
+def test_pack_photons_layout_and_padding():
+    """SoA rows position/power/direction, plus a CHUNK tail parked far
+    away so a sub-chunk read past the last photon stays in bounds and
+    never passes the distance test."""
+    grid, *_ = make_case(n_photons=300)
+    packed = np.asarray(tg._pack_photons(grid))
+    P = grid.position.shape[0]
+    assert packed.shape == (9, P + tg.CHUNK)
+    np.testing.assert_array_equal(packed[0:3, :P].T, grid.position)
+    np.testing.assert_array_equal(packed[3:6, :P].T, grid.power)
+    np.testing.assert_array_equal(packed[6:9, :P].T, grid.direction)
+    assert (packed[0:3, P:] >= 1e30).all()
+    assert not packed[3:6, P:].any()
+
+
+def test_queries_must_fill_whole_tiles():
+    grid, qpos, qn, radius = make_case(n_photons=300)
+    with pytest.raises(ValueError, match="multiple of"):
+        gather_photons_tiled(grid, qpos[:TILE + 16], qn[:TILE + 16], radius,
+                             u_rows=jnp.zeros((1, ROWS + 2)),
+                             interpret=True)
+
+
+def test_tile_block_order_is_a_block_permutation():
+    perm, inv = tg.tile_block_order(32, 48)
+    assert sorted(perm.tolist()) == list(range(32 * 48))
+    np.testing.assert_array_equal(perm[inv], np.arange(32 * 48))
+    # the first tile is the top-left 16x16 block
+    first = perm[:TILE]
+    assert set((first // 32).tolist()) == set(range(16))
+    assert set((first % 32).tolist()) == set(range(16))
+    with pytest.raises(ValueError):
+        tg.tile_block_order(40, 48)
+
+
+@pytest.mark.parametrize("requested,backend,size,want", [
+    (None, "gpu", 512, "kernel"),
+    (True, "gpu", 512, "kernel"),
+    (None, "cpu", 512, "xla"),
+    (True, "cpu", 512, "interpret"),
+    (False, "gpu", 512, "xla"),
+    (True, "gpu", 500, "xla"),
+])
+def test_gather_mode_selection(requested, backend, size, want):
+    assert tg.gather_mode(requested, size, size, backend) == want
+
+
+def test_gather_mode_rejects_other_backends():
+    assert tg.gather_mode(None, 64, 64, "rocm") == "xla"
+    with pytest.raises(ValueError, match="no route"):
+        tg.gather_mode(True, 64, 64, "rocm")
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_reference(gpu):
+    """The Triton-compiled kernel on the card against the plain
+    reference, subsampling included."""
+    grid, qpos, qn, radius = make_case(n_photons=20000, n_queries=TILE * 8,
+                                       cluster=True, radius=0.15)
+    u = jax.random.uniform(jax.random.PRNGKey(1), (8, ROWS + 2))
+    got, _ = gather_photons_tiled(grid, qpos, qn, radius, u_rows=u)
+    want = np.asarray(tg.gather_photons_tiled_reference(
+        grid, qpos, qn, radius, u_rows=u))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4,
+                               atol=1e-6 * want.max())

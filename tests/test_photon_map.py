@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu import photon_map as pm
+from oppositerenderer import photon_map as pm
 
 
 def make_photons(n=4000, seed=0, frac_valid=0.9):
@@ -167,11 +167,11 @@ def test_kdtree_gather_matches_bruteforce():
 def test_kdtree_in_ppm_iteration():
     """Full PPM iteration with the kd-tree structure stays finite and
     close to the grid-structure result."""
-    from oppositerenderer_tpu.config import (PhotonMapStructure,
+    from oppositerenderer.config import (PhotonMapStructure,
                                              RenderConfig, RenderMethod)
-    from oppositerenderer_tpu.core.rng import make_root_key
-    from oppositerenderer_tpu.integrators import ppm as ppm_mod
-    from oppositerenderer_tpu.scene import make_cornell_small
+    from oppositerenderer.core.rng import make_root_key
+    from oppositerenderer.integrators import ppm as ppm_mod
+    from oppositerenderer.scene import make_cornell_small
     scene, camera = make_cornell_small()
     base = RenderConfig(width=24, height=24,
                         render_method=RenderMethod.PROGRESSIVE_PHOTON_MAPPING,

@@ -2,10 +2,10 @@ import jax
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import (PhotonMapStructure, RenderConfig,
+from oppositerenderer.config import (PhotonMapStructure, RenderConfig,
                                          RenderMethod)
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import get_scene_by_name, make_cornell_small
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import get_scene_by_name, make_cornell_small
 
 
 def ppm_cfg(**kw):

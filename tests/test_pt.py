@@ -3,13 +3,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.camera import Camera
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.core.rng import make_root_key
-from oppositerenderer_tpu.integrators import pt
-from oppositerenderer_tpu.lights import make_area_light, make_point_light
-from oppositerenderer_tpu.renderer import Renderer, ppm_radius_sq_at_iteration
-from oppositerenderer_tpu.scene import SceneBuilder, make_cornell_small
+from oppositerenderer.camera import Camera
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.core.rng import make_root_key
+from oppositerenderer.integrators import pt
+from oppositerenderer.lights import make_area_light, make_point_light
+from oppositerenderer.renderer import Renderer, ppm_radius_sq_at_iteration
+from oppositerenderer.scene import SceneBuilder, make_cornell_small
 
 
 def small_cfg(w=48, h=48, **kw):
@@ -58,7 +58,7 @@ def test_point_light_direct_analytic():
     np.testing.assert_allclose(center, expect, rtol=0.02)
     # also check an off-center point: floor point p, cos=3/r, d^2=r^2
     # (use the camera ray to find p analytically for pixel (16,4))
-    from oppositerenderer_tpu.integrators.common import pixel_coords
+    from oppositerenderer.integrators.common import pixel_coords
     o, d = cam.generate_rays(jnp.asarray([4]), jnp.asarray([16]),
                              jnp.full((1, 2), 0.5), 32, 32)
     t = -float(o[0, 1]) / float(d[0, 1])
@@ -131,7 +131,7 @@ def test_async_dispatch_matches_sync():
 
 def test_dispatch_budget_splits_but_preserves_result():
     """A tiny dispatch_seconds_budget forces every dispatch down to a
-    single iteration (the tunneled-runtime watchdog guard); the film must
+    single iteration (the runtime-watchdog guard); the film must
     equal the explicitly single-stepped render bit-for-bit."""
     scene, cam = make_cornell_small()
     cfg = small_cfg(16, 16, iterations_per_dispatch=8,
@@ -188,9 +188,33 @@ def test_ppm_radius_schedule():
 
 
 def test_glass_sphere_scene_runs():
-    from oppositerenderer_tpu.scene import get_scene_by_name
+    from oppositerenderer.scene import get_scene_by_name
     scene, cam = get_scene_by_name("CornellSmallSmallSpheres")
     img = render_n(scene, cam, small_cfg(24, 24), 4)
     a = np.asarray(img)
     assert np.isfinite(a).all()
     assert a.max() > 0
+
+
+def test_fused_multi_iteration_matches_single_steps():
+    """render() with iterations_per_dispatch>1 must equal per-iteration
+    dispatch (the fused fori_loop computes the same radius schedule via
+    lgamma)."""
+    scene, camera = make_cornell_small()
+    for method in (RenderMethod.PATH_TRACING,
+                   RenderMethod.PROGRESSIVE_PHOTON_MAPPING):
+        cfg = RenderConfig(width=16, height=16, render_method=method,
+                           photons_per_iteration=2048,
+                           max_photon_trace_depth=3,
+                           photon_grid_resolution=8,
+                           gather_photon_budget=32,
+                           iterations_per_dispatch=1)
+        r1 = Renderer(scene, camera, cfg, seed=3)
+        r1.render(3)
+        cfg4 = cfg.replace(iterations_per_dispatch=3)
+        r2 = Renderer(scene, camera, cfg4, seed=3)
+        r2.render(3)
+        np.testing.assert_allclose(np.asarray(r1.film.accum),
+                                   np.asarray(r2.film.accum),
+                                   rtol=2e-4, atol=1e-5)
+        assert int(r2.film.iterations) == 3

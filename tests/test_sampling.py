@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.core import sampling as s
-from oppositerenderer_tpu.core import math as m
+from oppositerenderer.core import sampling as s
+from oppositerenderer.core import math as m
 
 N = 1 << 15
 

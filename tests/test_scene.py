@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.scene import (CornellSmallConfig, EMITTER, GLASS,
+from oppositerenderer.scene import (CornellSmallConfig, EMITTER, GLASS,
                                         MIRROR, get_scene_by_name,
                                         make_cornell, make_cornell_small)
 
@@ -80,7 +80,7 @@ def test_native_text_scanner_matches_python():
     """native/text_scan.cpp vs the exact Python fallback (round-4 verdict
     item 6: flagship parse must be C-speed without changing results)."""
     import numpy as np
-    from oppositerenderer_tpu.native import scan_floats, scan_ints
+    from oppositerenderer.native import scan_floats, scan_ints
 
     if scan_floats("1 2") is None:
         import pytest

@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import (PhotonExchange, RenderConfig,
+from oppositerenderer.config import (PhotonExchange, RenderConfig,
                                          RenderMethod)
-from oppositerenderer_tpu.core.rng import make_root_key
-from oppositerenderer_tpu.integrators import ppm, pt, vcm
-from oppositerenderer_tpu.parallel import make_mesh, make_sharded_render_fn
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer.core.rng import make_root_key
+from oppositerenderer.integrators import ppm, pt, vcm
+from oppositerenderer.parallel import make_mesh, make_sharded_render_fn
+from oppositerenderer.scene import make_cornell_small
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")

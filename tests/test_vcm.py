@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.core.rng import make_root_key
-from oppositerenderer_tpu.integrators import vcm
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import get_scene_by_name, make_cornell_small
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.core.rng import make_root_key
+from oppositerenderer.integrators import vcm
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import get_scene_by_name, make_cornell_small
 
 
 def vcm_cfg(**kw):

@@ -13,9 +13,9 @@ enables (OptixRenderer.cpp:300-301). Validation strategy:
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.renderer import Renderer
-from oppositerenderer_tpu.scene import make_cornell_small
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.renderer import Renderer
+from oppositerenderer.scene import make_cornell_small
 
 
 def vcm_cfg(**kw):
@@ -87,7 +87,7 @@ def test_vm_requires_grid(cornell):
     silently corrupting the estimator (round-2 verdict missing #2)."""
     import jax
     import jax.numpy as jnp
-    from oppositerenderer_tpu.integrators import vcm as V
+    from oppositerenderer.integrators import vcm as V
 
     scene, cam = cornell
     cfg = vcm_cfg(vcm_use_vm=True)
@@ -97,110 +97,3 @@ def test_vm_requires_grid(cornell):
         V.trace_camera_pass(scene, cam, cfg, jax.random.PRNGKey(0),
                             1e-3, jnp.ones(()), jnp.ones(()), None, n,
                             jnp.zeros((n,)), jnp.zeros((n,)), lanes, lanes)
-
-
-# ---------------------------------------------------------------------------
-# tile-shared Pallas merge (accel/pallas_vm.py, round 5)
-# ---------------------------------------------------------------------------
-
-def _synthetic_merge_setup(cornell, n_queries=256, seed=0):
-    """A controlled merge round where NEITHER path subsamples: a tight
-    vertex cluster (spans < 4 cells per axis at the grid's min cell size,
-    rows far below the DMA chunk) so the XLA budget walk and the tile
-    kernel both sum EVERY in-radius vertex -> results must match to fp
-    tolerance, not just statistically."""
-    import jax
-    import jax.numpy as jnp
-    from oppositerenderer_tpu.bsdf import BSDF
-    from oppositerenderer_tpu.integrators import vcm as V
-
-    scene, _cam = cornell
-    rng = np.random.default_rng(seed)
-    P, Vv = 8, 2
-    center = np.array([1.25, 1.0, 1.0])
-    pos = center + rng.uniform(-0.05, 0.05, (P, Vv, 3))
-    wo = rng.normal(size=(P, Vv, 3))
-    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
-    # point wo into the +z hemisphere so camera BSDFs with n=+z see them
-    wo[..., 2] = np.abs(wo[..., 2]) + 0.1
-    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
-    up = np.zeros((P, Vv, 3)); up[..., 2] = 1.0
-    diffuse_mat = int(np.asarray(
-        jnp.argmax(scene.materials.kd.sum(axis=-1))))
-    store = V.LightVertexStore(
-        position=jnp.asarray(pos, jnp.float32),
-        throughput=jnp.asarray(rng.uniform(0.1, 1.0, (P, Vv, 3)),
-                               jnp.float32),
-        dVCM=jnp.asarray(rng.uniform(0.0, 2.0, (P, Vv)), jnp.float32),
-        dVC=jnp.asarray(rng.uniform(0.0, 2.0, (P, Vv)), jnp.float32),
-        dVM=jnp.asarray(rng.uniform(0.0, 2.0, (P, Vv)), jnp.float32),
-        mat=jnp.full((P, Vv), diffuse_mat, jnp.int32),
-        ns=jnp.asarray(up, jnp.float32), ng=jnp.asarray(up, jnp.float32),
-        wo=jnp.asarray(wo, jnp.float32),
-        valid=jnp.ones((P, Vv), jnp.bool_),
-        depth=jnp.ones((P, Vv), jnp.int32))
-
-    n = n_queries
-    qpos = jnp.asarray(center + rng.uniform(-0.04, 0.04, (n, 3)),
-                       jnp.float32)
-    qn = jnp.zeros((n, 3), jnp.float32).at[:, 2].set(1.0)
-    wfix = rng.normal(size=(n, 3))
-    wfix /= np.linalg.norm(wfix, axis=-1, keepdims=True)
-    wfix[:, 2] = np.abs(wfix[:, 2]) + 0.2
-    wfix /= np.linalg.norm(wfix, axis=-1, keepdims=True)
-    kd, ks, expn, kr, kt, ior, diel = scene.materials.bsdf_coefficients(
-        jnp.full((n,), diffuse_mat, jnp.int32))
-    cam_bsdf = BSDF.make(qn, qn, jnp.asarray(wfix, jnp.float32),
-                         kd, ks, expn, kr, kt, ior, diel)
-    cam_thr = jnp.asarray(rng.uniform(0.2, 1.0, (n, 3)), jnp.float32)
-    cam_dVCM = jnp.asarray(rng.uniform(0.0, 2.0, (n,)), jnp.float32)
-    cam_dVM = jnp.asarray(rng.uniform(0.0, 2.0, (n,)), jnp.float32)
-    active = jnp.ones((n,), jnp.bool_)
-    radius_sq = jnp.float32(0.03 ** 2)
-    u = jax.random.uniform(jax.random.PRNGKey(7), (n,))
-    return (scene, store, cam_bsdf, qpos, cam_thr, cam_dVCM, cam_dVM,
-            active, radius_sq, u)
-
-
-def test_vm_pallas_tile_matches_xla_exactly(cornell):
-    """No-subsampling regime: the tile kernel (interpret mode) and the XLA
-    budget gather compute the same full sum."""
-    import jax.numpy as jnp
-    from oppositerenderer_tpu.integrators import vcm as V
-
-    (scene, store, cam_bsdf, qpos, cam_thr, cam_dVCM, cam_dVM, active,
-     radius_sq, u) = _synthetic_merge_setup(cornell)
-    cfg_x = vcm_cfg(vcm_use_vm=True, vcm_vm_budget=4096,
-                    vcm_vm_use_pallas=False)
-    vgrid = V.build_vertex_grid(scene, cfg_x, store, jnp.sqrt(radius_sq))
-    mis_vc_w = jnp.float32(0.25)
-    n_paths = 64
-    ref = V._merge_vertices(scene, cfg_x, cam_bsdf, qpos, cam_thr,
-                            cam_dVCM, cam_dVM, active, vgrid, radius_sq,
-                            mis_vc_w, n_paths, u, depth1=2)
-    cfg_p = vcm_cfg(vcm_use_vm=True, vcm_vm_use_pallas=True)
-    out = V._merge_vertices(scene, cfg_p, cam_bsdf, qpos, cam_thr,
-                            cam_dVCM, cam_dVM, active, vgrid, radius_sq,
-                            mis_vc_w, n_paths, u, depth1=2)
-    ref = np.asarray(ref)
-    out = np.asarray(out)
-    assert np.isfinite(out).all()
-    assert ref.sum() > 0.0, "degenerate setup: no merge energy"
-    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=1e-7)
-
-
-def test_vm_pallas_end_to_end_matches_xla(cornell):
-    """Full VCM+VM render through the tile kernel (interpret mode on CPU)
-    vs the XLA merge path: different unbiased subsampling patterns, same
-    estimator -> statistical agreement."""
-    scene, cam = cornell
-    imgs = {}
-    for name, flag in (("xla", False), ("pallas", True)):
-        r = Renderer(scene, cam, vcm_cfg(
-            vcm_use_vm=True, vcm_vm_use_pallas=flag), seed=21)
-        r.render(8)
-        imgs[name] = np.asarray(r.film.mean_radiance())
-    assert np.isfinite(imgs["pallas"]).all()
-    assert imgs["pallas"].mean() == pytest.approx(
-        imgs["xla"].mean(), rel=0.05), (
-        imgs["pallas"].mean(), imgs["xla"].mean())

@@ -7,7 +7,6 @@ MainWindowBase method switching (MainWindowBase.cpp:143-161), pause/resume
 (RunningStatus), and the Mouse camera interactions
 (util/Mouse.cpp:316-460).
 """
-import io
 import json
 import threading
 import time
@@ -16,9 +15,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from oppositerenderer_tpu.config import RenderConfig, RenderMethod
-from oppositerenderer_tpu.scene import make_cornell_small
-from oppositerenderer_tpu.viewer import RenderService, make_server
+from oppositerenderer.config import RenderConfig, RenderMethod
+from oppositerenderer.scene import make_cornell_small
+from oppositerenderer.viewer import RenderService, make_server
 
 CFG = dict(width=24, height=24, photons_per_iteration=1 << 10,
            photon_grid_resolution=8, gather_photon_budget=32,
@@ -65,13 +64,13 @@ def _stats(base):
 def test_page_and_frame(viewer):
     svc, base = viewer
     status, body, _ = _get(base, "/")
-    assert status == 200 and b"opposite-tpu" in body
+    assert status == 200 and b"opposite-renderer" in body
 
     assert _wait_for(lambda: _stats(base)["iterations"] >= 1)
     status, png, headers = _get(base, "/frame.png")
     assert status == 200 and png[:8] == b"\x89PNG\r\n\x1a\n"
-    from PIL import Image
-    img = np.asarray(Image.open(io.BytesIO(png)))
+    from oppositerenderer.png import decode_png
+    img = decode_png(png)
     assert img.shape == (24, 24, 3)
     assert img.max() > 0  # the box is lit
     assert int(headers["X-Iteration"]) >= 1
@@ -184,7 +183,7 @@ def test_workers_endpoint(viewer):
     svc, base = viewer
     # no farm attached: empty list
     assert json.loads(_get(base, "/workers")[1]) == []
-    from oppositerenderer_tpu.parallel.distributed import IterationScheduler
+    from oppositerenderer.parallel.distributed import IterationScheduler
     sched = IterationScheduler(total_iterations=8, packet_size=2)
     seq, its = sched.acquire("w0")
     sched.complete(seq, its)
